@@ -5,13 +5,14 @@ genomic loci + amrY, configurable sub/indel read error), then measures:
 
   - recovered-allele nucleotide identity vs the TRUTH sequence (independent
     banded edit-distance here, not the pipeline's own aligner) — the
-    reference paper's headline axis (99.9%, /root/reference/README.md:172;
+    reference paper's headline axis (99.9%, upstream README.md:172;
     racon semantics it replaces: result_utils.py:285-335,1089-1159)
   - copy-number recall/precision: detected AMR rows vs the genomic truth
     (amrX x2 + amrY x1), the paper's 98.4%/97.9% axes
 
 Usage: python accuracy_run.py [--reads 20000] [--sub 0.02] [--indel 0.01]
-       [--cpu] [--workdir DIR]
+       [--workdir DIR]
+(JAX_PLATFORMS=cpu runs it on the CPU backend.)
 Prints a markdown accuracy table (for SCALE_REPORT.md) and one JSON line.
 """
 
@@ -59,35 +60,33 @@ def identity(a: str, b: str) -> float:
     return max(0.0, 1.0 - edit_distance(a, b) / max(len(a), len(b)))
 
 
+def recovered_allele_seq(out: str, allele: str) -> str | None:
+    """The pipeline's recovered nucleotide sequence of one Amira allele:
+    the polished FASTA, else the unpolished draft, else None."""
+    for name in ("06.final_sequence.fasta", "03.sequence_to_polish.fasta"):
+        path = os.path.join(out, "AMR_allele_fastqs", allele, name)
+        if os.path.exists(path):
+            with open(path) as fh:
+                return "".join(fh.read().split("\n")[1:]).strip()
+    return None
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reads", type=int, default=20000)
     ap.add_argument("--sub", type=float, default=0.02)
     ap.add_argument("--indel", type=float, default=0.01)
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--workdir", default="/tmp/amira_accuracy")
     args = ap.parse_args()
-
-    if args.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
 
     sys.path.insert(
         0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     )
-    from synthetic import make_isolate
+    from synthetic import make_isolate, scale_layout
 
-    # the scale harness's genome shape: amrX at two loci, amrY at one,
-    # plus single-copy genes (E. coli-like gene count, so 20k reads give
-    # ~75x per-gene depth — a realistic ONT isolate)
-    layout = []
-    for i in range(4000):
-        layout.append(f"gene{i}")
-        if i in (500, 2900):
-            layout.append("amrX")
-        if i == 1700:
-            layout.append("amrY")
+    # the scale harness's genome shape; 20k reads give ~75x per-gene depth,
+    # a realistic ONT isolate
+    layout = scale_layout()
 
     os.makedirs(args.workdir, exist_ok=True)
     files = make_isolate(
@@ -127,28 +126,18 @@ def main():
             raise
     wall = time.time() - t0
 
-    import pandas as pd
+    import csv
 
-    df = pd.read_csv(os.path.join(out, "amira_results.tsv"), sep="\t")
+    with open(os.path.join(out, "amira_results.tsv"), newline="") as fh:
+        result_rows = list(csv.DictReader(fh, delimiter="\t"))
 
     # --- recovered-allele identity vs truth
     rows = []
     identities = []
-    for _i, row in df.iterrows():
+    for row in result_rows:
         gene = row["Determinant name"]
         allele = row["Amira allele"]
-        seq_path_final = os.path.join(
-            out, "AMR_allele_fastqs", allele, "06.final_sequence.fasta"
-        )
-        seq_path_raw = os.path.join(
-            out, "AMR_allele_fastqs", allele, "03.sequence_to_polish.fasta"
-        )
-        seq = None
-        for p in (seq_path_final, seq_path_raw):
-            if os.path.exists(p):
-                with open(p) as fh:
-                    seq = "".join(fh.read().split("\n")[1:]).strip()
-                break
+        seq = recovered_allele_seq(out, allele)
         true_seq = truth["allele_seqs"].get(gene)
         ident = identity(seq or "", true_seq or "")
         identities.append(ident)
@@ -156,7 +145,10 @@ def main():
                      100.0 * ident))
 
     # --- copy-number recall / precision (rows vs genomic truth)
-    detected = df["Determinant name"].value_counts().to_dict()
+    detected: dict = {}
+    for row in result_rows:
+        gene = row["Determinant name"]
+        detected[gene] = detected.get(gene, 0) + 1
     tp = sum(
         min(detected.get(g, 0), c) for g, c in truth["copy_counts"].items()
     )

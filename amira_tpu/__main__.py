@@ -13,7 +13,7 @@ def get_options(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog="amira-tpu",
         description="Identify acquired AMR genes from bacterial long read "
-        "sequences (TPU-native engine).",
+        "sequences (JAX engine).",
     )
     parser.add_argument("--pandoraSam", dest="pandoraSam", help=argparse.SUPPRESS, default=None)
     parser.add_argument("--pandoraJSON", dest="pandoraJSON", help=argparse.SUPPRESS, default=None)

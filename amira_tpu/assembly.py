@@ -11,7 +11,7 @@ consensus pipeline built on the in-process kernels:
      one link per read end, union-find against cycles);
   4. per-contig draft construction from the voted offsets, then iterative
      polishing against the contig's reads with the device consensus kernel
-     (ops/consensus.polish — batched banded SW on TPU).
+     (ops/consensus.polish — batched banded SW on device).
 
 Unlike the earlier backbone-polish stopgap this assembles past the longest
 read: contigs span chains of dovetail overlaps. Repeat resolution beyond

@@ -54,13 +54,17 @@ def _entry_to_argv(entry: dict, output_root: str | None, idx: int) -> list[str]:
 
 
 def run_isolate(argv: list[str], device=None) -> dict:
-    """Run one isolate's pipeline, optionally pinned to a device."""
+    """Run one isolate's pipeline, optionally pinned to a device. A pinned
+    stream builds its graphs on that device alone: the other devices run
+    other streams, so a mesh over all of them is not this stream's to use."""
     import jax
 
     from amira_tpu.__main__ import get_options
     from amira_tpu.pipeline import run_pipeline
 
     args = get_options(argv)
+    if device is not None:
+        args.dist_build = False
     start = time.time()
     status = "ok"
     try:
@@ -131,7 +135,8 @@ def main(argv=None) -> None:
 
     parser = argparse.ArgumentParser(
         prog="amira-tpu-batch",
-        description="Process a batch of isolates (one device stream each).",
+        description="Process a batch of isolates (one device stream each); "
+        "exits 1 when any isolate failed.",
     )
     parser.add_argument("manifest", help="JSON list of per-isolate CLI flag dicts")
     parser.add_argument("--workers", type=int, default=None)
@@ -144,6 +149,8 @@ def main(argv=None) -> None:
         manifest, args.output_root, args.workers, args.quiet
     )
     print(json.dumps(summaries, indent=2))
+    if any(s["status"] != "ok" for s in summaries):
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 /* Native host-runtime kernels for amira-tpu.
  *
  * The reference delegates its performance-critical host work to external C/C++
- * tools; here the host runtime around the TPU compute path is native too:
+ * tools; here the host runtime around the device compute path is native too:
  *   - parse_fastq: zlib-streamed FASTQ reader -> {name: (seq, qual)}
  *   - encode_reads: stranded-gene-string lists -> int32 token arrays using a
  *     shared vocabulary dict (the hot tokenization step of every graph build)

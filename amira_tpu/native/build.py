@@ -30,8 +30,11 @@ def build(force: bool = False) -> str | None:
         return so
     include = sysconfig.get_paths()["include"]
     cc = os.environ.get("CC", "gcc")
+    # compile to a private name and rename into place, so concurrent first
+    # imports (test workers, batch streams) never load a half-written file
+    tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [
-        cc, "-O2", "-fPIC", "-shared", "-o", so, _SRC,
+        cc, "-O2", "-fPIC", "-shared", "-o", tmp, _SRC,
         f"-I{include}", "-lz",
     ]
     try:
@@ -41,6 +44,7 @@ def build(force: bool = False) -> str | None:
     except (subprocess.CalledProcessError, FileNotFoundError, subprocess.TimeoutExpired) as e:
         sys.stderr.write(f"amira-tpu: native build failed ({e}); using Python fallbacks\n")
         return None
+    os.replace(tmp, so)
     return so
 
 

@@ -6,7 +6,8 @@ added, edges unioned, read tables unioned. Here the same merge semantics run
 as XLA collectives: every device builds a bounded count table (sorted unique
 hashes + segment-summed coverages) for its read shard, the tables are
 all-gathered over the `data` mesh axis, and a second bounded count merges
-them — so gene-mer counting scales over ICI/DCN without any host round-trip.
+them — so gene-mer counting scales over the device interconnect without
+any host round-trip.
 
 This module provides the device-side table kernels (also used single-chip by
 bench.py) and the shard_map-based distributed step used by
@@ -92,7 +93,8 @@ def make_distributed_genemer_step(mesh, k: int, capacity: int):
         local_keys, local_counts = bounded_count(
             nh.reshape(-1), jnp.ones(nh.size, jnp.int32), capacity
         )
-        # merge shard tables over ICI: gather every shard's table, re-count
+        # merge shard tables over the interconnect: gather every shard's
+        # table, re-count
         all_keys = jax.lax.all_gather(local_keys, "data").reshape(-1)
         all_counts = jax.lax.all_gather(local_counts, "data").reshape(-1)
         merged_keys, merged_counts = bounded_count(all_keys, all_counts, capacity)
@@ -121,11 +123,11 @@ def make_distributed_genemer_step_2d(mesh, k: int, capacity: int):
 
     Reads shard over BOTH axes (maximum data parallelism); the hash space
     shards over the "table" axis: every device routes each gene-mer hash to
-    its owning table shard (hash mod T) with an all_to_all over ICI, counts
+    its owning table shard (hash mod T) with an all_to_all, counts
     its partition, then merges partial tables across the "data" axis with an
     all_gather + re-count. Each device ends up holding the global count table
     for its hash partition — the table-parallel analogue of TP for a count
-    table that would not fit one chip's HBM at pod scale.
+    table that would not fit one device's memory.
     """
     shard_map = jax.shard_map
     T = mesh.shape["table"]
@@ -183,13 +185,14 @@ def make_distributed_genemer_step_3d(mesh, k: int, capacity: int):
     """Hierarchical gene-mer counting over a ("host", "data", "table") mesh —
     the multi-host (BASELINE config 5) layout.
 
-    Axis roles: "host" models the DCN boundary between v5e hosts; "data" and
-    "table" are the intra-host ICI axes. Reads shard data-parallel over all
-    three axes. Each device routes hashes to the table-partition owner inside
-    its host (all_to_all over "table", rides ICI), counts its partition, then
-    merges the data-axis partials over ICI — producing one deduplicated
-    per-host table per partition. Only THEN does the "host" axis merge run
-    (all_gather over DCN + re-count): hierarchical merging ships deduplicated
+    Axis roles: "host" is the boundary between hosts (the network); "data"
+    and "table" are the intra-host axes (the device interconnect). Reads
+    shard data-parallel over all three axes. Each device routes hashes to the
+    table-partition owner inside its host (all_to_all over "table"), counts
+    its partition, then merges the data-axis partials inside the host —
+    producing one deduplicated per-host table per partition. Only THEN does
+    the "host" axis merge run (all_gather across hosts + re-count):
+    hierarchical merging ships deduplicated
     tables across the slow axis instead of raw occurrence streams, which is
     the collective equivalent of the reference's shard merge
     (amira/graph_utils.py:17-102) with its coverage adds.
@@ -221,11 +224,11 @@ def make_distributed_genemer_step_3d(mesh, k: int, capacity: int):
         local_keys, local_counts = bounded_count(
             mine, jnp.ones(mine.shape[0], jnp.int32), capacity
         )
-        # intra-host merge over ICI
+        # intra-host merge over the device interconnect
         d_keys = jax.lax.all_gather(local_keys, "data").reshape(-1)
         d_counts = jax.lax.all_gather(local_counts, "data").reshape(-1)
         host_keys, host_counts = bounded_count(d_keys, d_counts, capacity)
-        # cross-host merge over DCN (deduplicated tables only)
+        # cross-host merge over the network (deduplicated tables only)
         h_keys = jax.lax.all_gather(host_keys, "host").reshape(-1)
         h_counts = jax.lax.all_gather(host_counts, "host").reshape(-1)
         merged_keys, merged_counts = bounded_count(h_keys, h_counts, capacity)
@@ -514,14 +517,14 @@ def make_distributed_graph_step(
     read->node incidence.
 
     Mesh families (reads always shard data-parallel over EVERY axis):
-    - ("data",): local tables all_gathered over ICI + re-reduced, replicated.
+    - ("data",): local tables all_gathered + re-reduced, replicated.
     - ("data", "table"): local tables hash-routed to their table-partition
       owner (all_to_all over "table"), then the data-axis partials merge via
       all_gather + re-reduce — each table column holds the global table for
       its hash partition.
-    - ("host", "data", "table"): as 2D inside each host (ICI), then the
-      per-host deduplicated partition tables merge across the "host" (DCN)
-      axis — hierarchical: only deduplicated tables cross the slow axis,
+    - ("host", "data", "table"): as 2D inside each host, then the
+      per-host deduplicated partition tables merge across the "host"
+      (network) axis — hierarchical: only deduplicated tables cross the slow axis,
       the collective form of the reference's shard merge
       (amira/graph_utils.py:17-102).
 
@@ -799,9 +802,9 @@ def make_distributed_kmer_step(mesh, k: int, chunk: int):
     Each device unpacks its 2-bit-packed code shard, forms canonical
     window codes and scatter-adds them into a local dense (4^k + 1)-bin
     table; ONE psum_scatter over the `kdata` axis then leaves every device
-    holding its bin-slice of the GLOBAL table — the sum rides ICI and
-    per-device HBM scales down with mesh size (a 4 GB k=15 table becomes
-    512 MB/chip on 8 chips). `chunk` is the per-device code count.
+    holding its bin-slice of the GLOBAL table — per-device table memory
+    scales down with mesh size (a 4 GB k=15 table becomes 512 MB per device
+    on 8 devices). `chunk` is the per-device code count.
     """
     from amira_tpu.ops.kmer import _SENTINEL  # noqa: F401 (doc anchor)
 

@@ -41,12 +41,14 @@ from amira_tpu.results import (
     get_alleles,
     output_component_fastqs,
     process_reads,
-    supplement_result_df,
+    result_columns,
+    supplement_result_rows,
     write_empty_result,
     write_fastqs_for_genes,
     write_fastqs_for_genes_with_short_reads,
     write_pandora_gene_calls,
     write_reads_per_AMR_gene,
+    write_results_tsv,
 )
 from amira_tpu.tracing import TIMER, phase
 from amira_tpu.graph_cache import GraphBuildCache
@@ -469,7 +471,7 @@ def run_pipeline(args) -> None:
     with phase(
         "allele_polishing", items=len(supplemented_clusters), unit="alleles"
     ):
-        result_df = get_alleles(
+        result_rows = get_alleles(
             supplemented_clusters,
             args.output_dir,
             reference_alleles,
@@ -479,7 +481,7 @@ def run_pipeline(args) -> None:
             args.coverage,
             args.debug,
         )
-    if len(result_df) == 0:
+    if len(result_rows) == 0:
         write_empty_result(args.output_dir)
         sys.exit(0)
     if args.reads is not None and args.assembly is None and args.meta is False:
@@ -489,7 +491,7 @@ def run_pipeline(args) -> None:
             copy_numbers, mean_depth_per_reference = estimate_copy_numbers(
                 fastq_content,
                 path_reads,
-                set(result_df["Amira allele"]),
+                {row["Amira allele"] for row in result_rows},
                 args.output_dir,
                 15,
                 args.debug,
@@ -500,23 +502,24 @@ def run_pipeline(args) -> None:
                 "\namira-tpu: skipping cellular copy number estimation.\n"
             )
         copy_numbers, mean_depth_per_reference = {}, {}
-        for _index, row in result_df.iterrows():
+        for row in result_rows:
             copy_numbers[row["Amira allele"]] = "N/A"
             mean_depth_per_reference[row["Amira allele"]] = "N/A"
     if args.assemble_paths is True:
         from amira_tpu.assembly import assemble_full_length_paths
 
         assemble_full_length_paths(args.output_dir, args.cores)
-    result_df = supplement_result_df(
-        result_df, copy_numbers, mean_depth_per_reference, longest_read_lengths,
-        args.debug,
+    supplement_result_rows(
+        result_rows, copy_numbers, mean_depth_per_reference,
+        longest_read_lengths, args.debug,
     )
     if args.output_components is True:
-        result_df["Component ID"] = result_df.apply(
-            lambda row: allele_component_mapping[row["Amira allele"]], axis=1
-        )
-    result_df = filter_results(
-        result_df,
+        for row in result_rows:
+            row["Component ID"] = allele_component_mapping[row["Amira allele"]]
+    # the header keeps every column even when the filters drop every row
+    columns = result_columns(result_rows) + ["Comments"]
+    result_rows = filter_results(
+        result_rows,
         args.min_relative_depth,
         supplemented_clusters,
         annotatedReads,
@@ -530,8 +533,8 @@ def run_pipeline(args) -> None:
     if args.promoters:
         from amira_tpu.promoters import genotype_promoters
 
-        result_df = genotype_promoters(
-            result_df,
+        result_rows = genotype_promoters(
+            result_rows,
             reference_alleles,
             os.path.join(args.output_dir, "AMR_allele_fastqs"),
             sequence_names,
@@ -541,9 +544,8 @@ def run_pipeline(args) -> None:
         )
     if args.debug:
         write_reads_per_AMR_gene(args.output_dir, supplemented_clusters)
-    result_df = result_df.sort_values(by="Determinant name")
-    result_df.to_csv(
-        os.path.join(args.output_dir, "amira_results.tsv"), sep="\t", index=False
+    write_results_tsv(
+        result_rows, os.path.join(args.output_dir, "amira_results.tsv"), columns
     )
     TIMER.finish(args.output_dir, args.quiet)
     if not args.quiet:

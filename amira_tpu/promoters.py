@@ -13,8 +13,6 @@ import json
 import os
 import sys
 
-import pandas as pd
-
 from amira_tpu.ops.align import Aligner
 from amira_tpu.results import compare_reads_to_references
 
@@ -49,7 +47,7 @@ def _mutations_from_alignment(aln, query_seq, ref_seq):
 
 
 def genotype_promoters(
-    result_df,
+    result_rows,
     reference_alleles,
     output_dir,
     phenotypes_path,
@@ -59,10 +57,11 @@ def genotype_promoters(
 ):
     if not any("_promoter" in a for a in reference_alleles):
         sys.stderr.write("\namira-tpu: No promoters found in reference FASTA.\n")
-        return result_df
+        return result_rows
     with open(phenotypes_path) as i:
         phenotypes = json.load(i)
-    for _index, row in result_df.iterrows():
+    result_rows = list(result_rows)
+    for row in list(result_rows):
         amira_gene = "_".join(row["Amira allele"].split("_")[:-1])
         promoter_name = amira_gene + "_promoter"
         if promoter_name not in reference_alleles:
@@ -136,8 +135,5 @@ def genotype_promoters(
             if output_components is True:
                 new_row["Component ID"] = row.get("Component ID")
             rows.append(new_row)
-        if rows:
-            result_df = pd.concat(
-                [result_df, pd.DataFrame(rows)], ignore_index=True
-            )
-    return result_df
+        result_rows.extend(rows)
+    return result_rows

@@ -11,12 +11,13 @@ numbered FASTAs, amira_results.tsv) keep the reference's layout and schema.
 
 from __future__ import annotations
 
+import csv
 import json
+import numbers
 import os
 import sys
 
 import numpy as np
-import pandas as pd
 
 from amira_tpu.io import write_fasta, write_fastq
 from amira_tpu.ops.align import Aligner, reverse_complement
@@ -742,8 +743,7 @@ def get_alleles(
                 phenotypes,
             )
         rows_by_allele[allele_name] = row
-    rows = [rows_by_allele[a] for a in supplemented_clusters]
-    return pd.DataFrame(rows)
+    return [rows_by_allele[a] for a in supplemented_clusters]
 
 
 # --------------------------------------------------------------- copy number
@@ -816,30 +816,29 @@ def write_empty_result(output_dir):
         o.write(results)
 
 
-def supplement_result_df(
-    result_df, copy_numbers, mean_depth_per_reference, longest_read_lengths, debug
+def supplement_result_rows(
+    rows, copy_numbers, mean_depth_per_reference, longest_read_lengths, debug
 ):
-    estimates, copy_depths, read_lengths = [], [], []
-    for _index, row in result_df.iterrows():
-        estimates.append(copy_numbers[row["Amira allele"]])
-        copy_depths.append(mean_depth_per_reference[row["Amira allele"]])
-        read_lengths.append(longest_read_lengths.get(row["Amira allele"], 0))
-    result_df["Relative mean read depth"] = copy_depths
-    result_df["Approximate cellular copy number"] = estimates
-    if debug:
-        result_df["Longest read length"] = read_lengths
-    return result_df
+    """Add the depth / copy-number (and, with debug, longest-read) columns
+    to every result row in place."""
+    for row in rows:
+        allele = row["Amira allele"]
+        row["Relative mean read depth"] = mean_depth_per_reference[allele]
+        row["Approximate cellular copy number"] = copy_numbers[allele]
+        if debug:
+            row["Longest read length"] = longest_read_lengths.get(allele, 0)
+    return rows
 
 
 def filter_results(
-    result_df, min_relative_depth, supplemented_clusters, annotatedReads,
+    rows, min_relative_depth, supplemented_clusters, annotatedReads,
     sample_genesOfInterest, required_identity, required_coverage,
     mean_read_depth, plasmid_genes, meta,
 ):
     """Identity/coverage/relative-depth filters + comment flags
-    (result_utils.py:124-207)."""
+    (result_utils.py:124-207). Returns the kept rows, each with a
+    "Comments" entry."""
     alleles_to_delete = []
-    comments = []
     if meta is True:
         skip_depth_filtering = True
         sys.stderr.write(
@@ -852,8 +851,6 @@ def filter_results(
         )
     else:
         skip_depth_filtering = False
-    import pandas as pd
-
     required_coverage = required_coverage * 100
     required_identity = required_identity * 100
 
@@ -862,28 +859,24 @@ def filter_results(
         # number is the filter subject (contract: result_utils.py:137-151)
         return float(v.split("/")[0]) if isinstance(v, str) and "/" in v else v
 
-    identity = result_df["Identity (%)"].map(_leading_float)
-    coverage = result_df["Coverage (%)"].map(_leading_float)
-    fail_id = identity < required_identity
-    fail_cov = ~fail_id & (coverage < required_coverage)
-    if skip_depth_filtering:
-        fail_depth = pd.Series(False, index=result_df.index)
-    else:
-        fail_depth = (
-            ~fail_id
-            & ~fail_cov
-            & (result_df["Relative mean read depth"] < min_relative_depth)
-        )
-    dead = fail_id | fail_cov | fail_depth
-    for idx in result_df.index[dead]:
-        allele = result_df.at[idx, "Amira allele"]
-        if fail_id.at[idx]:
-            reason, value = "similarity", identity.at[idx]
-        elif fail_cov.at[idx]:
-            reason, value = "coverage", coverage.at[idx]
-        else:
+    kept = []
+    for row in rows:
+        identity = _leading_float(row["Identity (%)"])
+        coverage = _leading_float(row["Coverage (%)"])
+        if identity < required_identity:
+            reason, value = "similarity", identity
+        elif coverage < required_coverage:
+            reason, value = "coverage", coverage
+        elif (
+            not skip_depth_filtering
+            and row["Relative mean read depth"] < min_relative_depth
+        ):
             reason = "relative read depth"
-            value = result_df.at[idx, "Relative mean read depth"]
+            value = row["Relative mean read depth"]
+        else:
+            kept.append((row, coverage))
+            continue
+        allele = row["Amira allele"]
         sys.stderr.write(
             f"\namira-tpu: allele {allele} removed due to "
             f"insufficient {reason} ({value}).\n"
@@ -904,19 +897,56 @@ def filter_results(
             )
         return v
 
-    for idx in result_df.index[~dead]:
+    for row, coverage in kept:
         flags = []
-        if coverage.at[idx] < 90:
+        if coverage < 90:
             flags.append("Partially present gene.")
-        members = supplemented_clusters[result_df.at[idx, "Amira allele"]]
+        members = supplemented_clusters[row["Amira allele"]]
         if all(_source_goi_only(m) for m in members):
             flags.append("Potential contaminant.")
-        comments.append(" ".join(flags))
+        row["Comments"] = " ".join(flags)
     for amira_allele in alleles_to_delete:
         del supplemented_clusters[amira_allele]
-    result_df = result_df[~dead].copy()
-    result_df["Comments"] = comments
-    return result_df
+    return [row for row, _coverage in kept]
+
+
+def result_columns(rows):
+    """Column order of a result table: every key, in order of first
+    appearance over the rows."""
+    return list(dict.fromkeys(key for row in rows for key in row))
+
+
+def _tsv_formatter(values):
+    """Cell formatter for one column, with the reference's (pandas
+    to_csv) rendering: a column of plain integers prints as integers; a
+    numeric column that holds a float or a missing cell prints every value
+    as a float (repr, so 100 -> "100.0"); any other column prints str().
+    Missing cells (and NaN) print empty."""
+    present = [v for v in values if v is not None]
+    numeric = all(
+        isinstance(v, numbers.Real) and not isinstance(v, bool)
+        for v in present
+    )
+    integral = all(isinstance(v, numbers.Integral) for v in present)
+    if present and numeric and integral and len(present) == len(values):
+        return lambda v: str(int(v))
+    if present and numeric:
+        return lambda v: "" if v is None or v != v else repr(float(v))
+    return lambda v: "" if v is None else str(v)
+
+
+def write_results_tsv(rows, path, columns=()):
+    """amira_results.tsv: rows stable-sorted by determinant name, columns
+    in `columns` order followed by any other key the rows carry."""
+    columns = list(dict.fromkeys([*columns, *result_columns(rows)]))
+    rows = sorted(rows, key=lambda r: r["Determinant name"])
+    cells = {c: [row.get(c) for row in rows] for c in columns}
+    formats = {c: _tsv_formatter(cells[c]) for c in columns}
+    with open(path, "w", newline="") as fh:
+        writer = csv.writer(fh, delimiter="\t", lineterminator="\n")
+        writer.writerow(columns)
+        for i in range(len(rows)):
+            writer.writerow([formats[c](cells[c][i]) for c in columns])
 
 
 def output_component_fastqs(output_dir, graph, fastq_content):

@@ -12,16 +12,31 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 import time
 from contextlib import contextmanager
 
 
 class PhaseTimer:
+    """Phase records are per thread, so concurrent isolate streams
+    (amira_tpu/batch.py) each time and report their own pipeline."""
+
     def __init__(self):
-        self.phases: list[dict] = []
-        self._stack: list[tuple[str, float, dict]] = []
+        self._local = threading.local()
         self._profile_dir = os.environ.get("AMIRA_TPU_PROFILE")
         self._profiling = False
+
+    @property
+    def phases(self) -> list[dict]:
+        if not hasattr(self._local, "phases"):
+            self._local.phases = []
+        return self._local.phases
+
+    @property
+    def _stack(self) -> list[tuple[str, float, dict]]:
+        if not hasattr(self._local, "stack"):
+            self._local.stack = []
+        return self._local.stack
 
     @contextmanager
     def phase(self, name: str, **meta):

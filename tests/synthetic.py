@@ -68,6 +68,38 @@ def mutate_fast(rng, codes, sub=0.03, indel=0.02):
     return res
 
 
+def scale_layout(n_genes=4000):
+    """The scale isolate's genome: n_genes single-copy genes, amrX at two
+    loci (multi-copy separation work) and amrY at one. At the default 4,000
+    genes (an E. coli-like gene count; 4,003 slots) 500k reads give
+    ~1900x per-gene depth, the order of the reference's subsample ceiling."""
+    x_loci = (n_genes * 500 // 4000, n_genes * 2900 // 4000)
+    y_locus = n_genes * 1700 // 4000
+    layout = []
+    for i in range(n_genes):
+        layout.append(f"gene{i}")
+        if i in x_loci:
+            layout.append("amrX")
+        if i == y_locus:
+            layout.append("amrY")
+    return layout
+
+
+def scale_isolate_kwargs(n_genes=4000, seed=17):
+    """make_isolate arguments of the scale isolate (scale_run.py,
+    chip_smoke.py): reads span 10-20 genes of 400 bp, 5% pandora-style call
+    noise, 2%/1% sub/indel read error."""
+    return dict(
+        seed=seed,
+        layout=scale_layout(n_genes),
+        amr_genes=("amrX", "amrY"),
+        genes_per_read=(10, 20),
+        gene_len=400,
+        fast=True,
+        call_noise=0.05,
+    )
+
+
 def make_isolate(
     tmpdir,
     seed=0,
@@ -156,7 +188,8 @@ def make_isolate(
         json.dump(calls, o)
     with open(pos_path, "w") as o:
         json.dump(positions, o)
-    with gzip.open(fastq_path, "wt") as o:
+    # level 1: the default (9) made compression most of the generation time
+    with gzip.open(fastq_path, "wt", compresslevel=1) as o:
         for rid, v in fastq.items():
             o.write(f"@{rid}\n{v['sequence']}\n+\n{v['quality']}\n")
 

@@ -225,7 +225,7 @@ def test_kmer_host_chunked_count_matches_unchunked():
 
 def test_kmer_dense_device_matches_host_gigabase_shaped():
     """The dense device counter (the gigabase jellyfish-replacement path:
-    chunk-streamed 2-bit-packed transfer + scatter-add into an HBM-resident
+    chunk-streamed 2-bit-packed transfer + scatter-add into a device-resident
     table) produces the identical table, histogram, query answers and
     cutoff-filtered depth pipeline as the host counter. Chunking is forced
     tiny, with one sequence far longer than a chunk, so the mid-sequence

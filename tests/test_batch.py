@@ -4,6 +4,7 @@ import json
 import os
 
 import pandas as pd
+import pytest
 
 from synthetic import make_isolate
 
@@ -54,23 +55,45 @@ def test_batch_cli_manifest(tmp_path):
     assert os.path.exists(os.path.join(outdir, "iso1", "amira_results.tsv"))
 
 
+def _broken_entry(tmp_path):
+    return {
+        "name": "broken",
+        "pandoraJSON": "/does/not/exist.json",
+        "gene-positions": "/does/not/exist_pos.json",
+        "reads": "/does/not/exist.fastq",
+        "species": "Escherichia_coli",
+        "amr-fasta": "/does/not/exist.fa",
+        "output": str(tmp_path / "broken"),
+        "quiet": True,
+    }
+
+
 def test_batch_survives_one_bad_isolate(tmp_path):
     """A failing isolate records an error summary instead of sinking the
     batch (one bad manifest entry must not discard completed isolates)."""
     from amira_tpu.batch import run_batch
 
-    manifest = [
-        {
-            "name": "broken",
-            "pandoraJSON": "/does/not/exist.json",
-            "gene-positions": "/does/not/exist_pos.json",
-            "reads": "/does/not/exist.fastq",
-            "species": "Escherichia_coli",
-            "amr-fasta": "/does/not/exist.fa",
-            "output": str(tmp_path / "broken"),
-            "quiet": True,
-        }
-    ]
+    manifest = [_broken_entry(tmp_path)]
     summaries = run_batch(manifest, str(tmp_path), workers=1, quiet=True)
     assert len(summaries) == 1
     assert summaries[0]["status"].startswith("error:")
+
+
+def test_batch_cli_exits_nonzero_when_an_isolate_fails(tmp_path, capsys):
+    """The CLI still finishes the batch, then reports the failure in its
+    exit status."""
+    from amira_tpu.batch import main
+
+    outdir = str(tmp_path / "out")
+    manifest = [
+        _entry(make_isolate(str(tmp_path / "iso1"), seed=1, n_reads=60), "iso1", outdir),
+        _broken_entry(tmp_path),
+    ]
+    mpath = str(tmp_path / "manifest.json")
+    with open(mpath, "w") as fh:
+        json.dump(manifest, fh)
+    with pytest.raises(SystemExit) as e:
+        main([mpath, "--workers", "1", "--quiet"])
+    assert e.value.code == 1
+    statuses = [s["status"] for s in json.loads(capsys.readouterr().out)]
+    assert statuses[0] == "ok" and statuses[1].startswith("error:")

@@ -203,7 +203,6 @@ def test_filter_results_rows_match_upstream(tmp_path):
             "Relative mean read depth": depth,
             "Approximate cellular copy number": depth,
         })
-    df = pd.DataFrame(rows)
     supplemented = {
         a: [f"r{a}_0_99"] for a, *_ in cases
     }
@@ -217,8 +216,12 @@ def test_filter_results_rows_match_upstream(tmp_path):
     args = (
         0.2, supplemented, annotated, genes, 0.9, 0.8, 30.0, set(), False,
     )
-    ours = filter_results(df.copy(), *[copy.deepcopy(a) for a in args])
-    theirs = ref_filter_results(df.copy(), *[copy.deepcopy(a) for a in args])
+    ours = pd.DataFrame(
+        filter_results(copy.deepcopy(rows), *[copy.deepcopy(a) for a in args])
+    )
+    theirs = ref_filter_results(
+        pd.DataFrame(rows), *[copy.deepcopy(a) for a in args]
+    )
     pd.testing.assert_frame_equal(
         ours.reset_index(drop=True), theirs.reset_index(drop=True)
     )

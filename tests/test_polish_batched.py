@@ -68,10 +68,8 @@ def test_batched_equals_serial_rows():
         clusters, refs, fastq, pheno_path, phenos = _workload(tmpdir)
         out_b = os.path.join(tmpdir, "batched")
         os.makedirs(out_b, exist_ok=True)
-        df = get_alleles(clusters, out_b, refs, pheno_path, fastq, 0.9, 0.9)
-        batched_rows = {
-            row["Amira allele"]: dict(row) for _, row in df.iterrows()
-        }
+        rows = get_alleles(clusters, out_b, refs, pheno_path, fastq, 0.9, 0.9)
+        batched_rows = {row["Amira allele"]: row for row in rows}
         out_s = os.path.join(tmpdir, "serial")
         os.makedirs(out_s, exist_ok=True)
         for allele_name, members in clusters.items():
